@@ -1,5 +1,7 @@
 """Native C++ SBVH builder: agreement with the numpy semantic definition."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -11,7 +13,11 @@ from tpu_rt.core.types import FlatBVH
 from tpu_rt.scene import Scene, procedural
 from tpu_rt.trace import intersect_brute, trace_flat_scalar
 
-pytestmark = pytest.mark.skipif(not native.native_available(), reason=f"native build failed: {native.build_error()}")
+@pytest.fixture(scope="module", autouse=True)
+def native_lib():
+    """Build (or find) the native library; skip when it does not build."""
+    if not native.native_available():
+        pytest.skip(f"native build failed: {native.build_error()}")
 
 
 @pytest.fixture(scope="module")
@@ -77,3 +83,41 @@ def test_native_empty_and_single():
     d = np.array([[0.0, 0.0, 1.0]], np.float32)
     sid, st, _, _ = trace_flat_scalar(flat, o, d, np.zeros(1, np.float32), np.full(1, 10.0, np.float32))
     assert sid[0] == 0 and np.isclose(st[0], 1.0)
+
+
+def test_native_build_is_portable_and_keyed():
+    """The library is compiled for the generic target (no -march=native)
+    into the git-ignored build directory, under a name keyed by the
+    source and the command."""
+    from tpu_rt import _build
+
+    assert not any(a.startswith("-march") for a in native._CMD)
+    path = _build.library_path("libtpurt_native", native._SRC, native._CMD)
+    assert os.path.dirname(path) == _build.BUILD_DIR
+    assert os.path.exists(path)
+    other = _build.library_path("libtpurt_native", native._SRC, native._CMD + ["-g"])
+    assert other != path
+
+
+def test_build_library_atomic(tmp_path, monkeypatch):
+    """build_library compiles once to a temporary name and moves the whole
+    file into place; a failed build raises and leaves no file behind."""
+    from tpu_rt import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    src = tmp_path / "one.cc"
+    src.write_text('extern "C" int one() { return 1; }\n')
+    cmd = ["g++", "-shared", "-fPIC", str(src), "-o", "{out}"]
+    path = _build.build_library("libone", str(src), cmd)
+    assert os.path.exists(path)
+    mtime = os.path.getmtime(path)
+    assert _build.build_library("libone", str(src), cmd) == path
+    assert os.path.getmtime(path) == mtime  # reused, not rebuilt
+    import ctypes
+
+    assert ctypes.CDLL(path).one() == 1
+    bad = tmp_path / "bad.cc"
+    bad.write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="failed"):
+        _build.build_library("libbad", str(bad), ["g++", "-shared", "-fPIC", str(bad), "-o", "{out}"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(["one.cc", "bad.cc", os.path.basename(path)])

@@ -118,7 +118,7 @@ def test_sbvh_build_stats_pinned(name, tmp_path):
 
 
 def test_grt_replay_parses_every_line():
-    """Drop-in CLI compatibility (VERDICT r4 #5): every replayable line
+    """Drop-in CLI compatibility: every replayable line
     of the reference cookbook parses through the real parser with its
     camera decoding; scenes with surrogates remap, the three scenes
     without one (cornellbox/breakfast_room/gallery) fail loudly."""

@@ -282,7 +282,7 @@ def test_obj_numpy_engine_matches_scalar(obj_path):
 
 def test_obj_import_large_roundtrip(tmp_path):
     """>=500K-tri export -> import round trip within a time budget
-    (VERDICT round-2 #8: the reference ingests hairball-class OBJs,
+    (the reference ingests hairball-class OBJs,
     MeshWavefrontIO.cc:449-469; the importer must scale)."""
     import time
 

@@ -1,6 +1,7 @@
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from tpu_rt.bvh import build_sbvh, flatten_bvh
@@ -186,3 +187,113 @@ def test_interior_scene_wavefront():
     np.testing.assert_array_equal(np.asarray(hits.tri), s_id)
     # Interior rays nearly always hit something (closed room).
     assert (s_id >= 0).mean() > 0.95
+
+
+# ---- the plain reference against the oracle, across scenes and ray types ----
+
+_MATRIX_SCENES = {
+    "knob": lambda: procedural.make_blob(600, seed=10, roughness=0.08, ground=True),
+    "interior": lambda: procedural.make_interior(900, seed=11),
+    "hairball": lambda: procedural.make_hairball(900, seed=13),
+}
+
+
+@pytest.fixture(scope="module")
+def matrix_scenes():
+    out = {}
+    for name, make in _MATRIX_SCENES.items():
+        scene, flat = _scene_and_flat(make())
+        out[name] = (scene, flat, device_bvh(flat))
+    return out
+
+
+def _matrix_rays(name, scene, dbvh, ray_type):
+    """Primary-like rays (from outside toward the model; inside the room
+    for the interior), or AO / diffuse rays spawned from their hits."""
+    from tpu_rt.raygen.generators import gen_ao_rays
+
+    rays = make_rays(*_random_rays(scene, 192, seed=11, from_outside=name != "interior"))
+    if ray_type == "primary":
+        return rays
+    hits = trace_wavefront(dbvh, rays)
+    lo, hi = scene.bbox()
+    size = float(np.linalg.norm(hi - lo))
+    dist = 0.25 * size if ray_type == "ao" else 4 * size
+    sec, _, _ = gen_ao_rays(rays.origin, rays.dirn, hits.t, hits.tri,
+                            jnp.asarray(scene.tri_normal), 2, jnp.float32(dist),
+                            jnp.uint32(5))
+    return sec
+
+
+@pytest.mark.parametrize("scene_name", sorted(_MATRIX_SCENES))
+@pytest.mark.parametrize("ray_type", ["primary", "ao", "diffuse"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wavefront_oracle_matrix(matrix_scenes, scene_name, ray_type, any_hit):
+    """trace_wavefront is the reference the CUDA kernel is judged against;
+    it must agree with the scalar oracle on every ray of every scene
+    class and ray type, closest and any hit."""
+    from tpu_rt.core.types import Hits
+    from tpu_rt.trace.verify import compare_hits
+
+    scene, flat, dbvh = matrix_scenes[scene_name]
+    rays = _matrix_rays(scene_name, scene, dbvh, ray_type)
+    got = trace_wavefront(dbvh, rays, any_hit=any_hit)
+    o, d = np.asarray(rays.origin), np.asarray(rays.dirn)
+    oracle = trace_flat_scalar(flat, o, d, np.asarray(rays.tmin),
+                               np.asarray(rays.tmax), any_hit=any_hit)
+    want = Hits(*oracle)
+    report = compare_hits(flat, rays, got, want, any_hit)
+    assert report["disputed"] == 0, report
+    assert (oracle[0] >= 0).any()  # the case traces real hits
+
+
+def test_woop_tuv_is_the_oracle_arithmetic():
+    """The reference's triangle test is elementwise (never a dot product,
+    so a GPU cannot run it in TF32) and follows the oracle's operation
+    order: t = Oz * (1/Dz) with sequential sums.  XLA may still contract
+    a product and a sum into one FMA, so values agree to a few ulps."""
+    from tpu_rt.trace.xla_tracer import woop_tuv
+
+    rng = np.random.default_rng(0)
+    n = 4096
+    w = rng.normal(size=(n, 12)).astype(np.float32)
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 10
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    args = (jnp.asarray(w), jnp.asarray(o), jnp.asarray(d))
+    assert "dot_general" not in str(jax.make_jaxpr(woop_tuv)(*args))
+    t, u, v = jax.jit(woop_tuv)(*args)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        oz = w[:, 3] - o[:, 0] * w[:, 0] - o[:, 1] * w[:, 1] - o[:, 2] * w[:, 2]
+        dz = d[:, 0] * w[:, 0] + d[:, 1] * w[:, 1] + d[:, 2] * w[:, 2]
+        t_ref = oz * (np.float32(1.0) / dz)
+        u_ref = (w[:, 7] + o[:, 0] * w[:, 4] + o[:, 1] * w[:, 5] + o[:, 2] * w[:, 6]) + t_ref * (
+            d[:, 0] * w[:, 4] + d[:, 1] * w[:, 5] + d[:, 2] * w[:, 6])
+        v_ref = (w[:, 11] + o[:, 0] * w[:, 8] + o[:, 1] * w[:, 9] + o[:, 2] * w[:, 10]) + t_ref * (
+            d[:, 0] * w[:, 8] + d[:, 1] * w[:, 9] + d[:, 2] * w[:, 10])
+    ok = np.abs(t_ref) < 1e3  # away from Dz ~ 0, where cancellation rules
+    np.testing.assert_allclose(np.asarray(t)[ok], t_ref[ok], rtol=1e-4, atol=1e-5)
+    for got, ref in ((u, u_ref), (v, v_ref)):
+        np.testing.assert_allclose(np.asarray(got)[ok], ref[ok], rtol=1e-3, atol=1e-3)
+
+
+def test_shading_pinned_precision_same_bits():
+    """Pinning the Lambert dot to full float32 changes nothing on the CPU:
+    the pinned shading gives the same bits as the unpinned matmul."""
+    from tpu_rt.diff.shading import LIGHT, shade_hits_diff
+    from tpu_rt.shade.reconstruct import BG_COLOR
+
+    scene = Scene(procedural.make_blob(400, seed=4))
+    vtx = jnp.asarray(scene.vtx_pos)
+    tvi = jnp.asarray(scene.tri_vtx_index)
+    mat = jnp.asarray(scene.tri_material)
+    tri = jnp.asarray(np.random.default_rng(1).integers(-1, scene.num_triangles, 512), jnp.int32)
+    got = shade_hits_diff(tri, vtx, tvi, mat)
+
+    v0, v1, v2 = vtx[tvi[:, 0]], vtx[tvi[:, 1]], vtx[tvi[:, 2]]
+    n = jnp.cross(v1 - v0, v2 - v0)
+    n = n / jnp.maximum(jnp.linalg.norm(n, axis=-1, keepdims=True), 1e-30)
+    lambert = n @ jnp.asarray(LIGHT) * 0.5 + 0.5  # the unpinned form
+    table = mat[:, :3] * lambert[:, None]
+    want = jnp.where((tri >= 0)[:, None], table[jnp.clip(tri, 0, None)],
+                     jnp.asarray(BG_COLOR[:3])[None, :])
+    np.testing.assert_array_equal(np.asarray(got).view(np.int32), np.asarray(want).view(np.int32))

@@ -1,4 +1,4 @@
-"""Interactive display path (the TPU-idiomatic stand-in for the
+"""Interactive display path (the headless stand-in for the
 reference's GL window, App.cc:62-132): HTTP orbit viewer serving
 freshly traced frames."""
 

@@ -1,13 +1,6 @@
-"""Reference-calibrated workload definitions (tpu_rt/bench/workload.py)
-and the suite's fitted cost model (tools/bench_suite.py)."""
-
-import os
-import sys
+"""Reference-calibrated workload definitions (tpu_rt/bench/workload.py)."""
 
 import numpy as np
-import pytest
-
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from tpu_rt.bench.workload import (FRAME_H, FRAME_W, INTERIOR_SCENES,
                                    REF_AO_RADIUS, REF_EXTENT_EST, SCENE_FOV,
@@ -58,51 +51,3 @@ def test_knob_camera_frames_object():
     blob = np.asarray(scene.vtx_pos)[:-4]
     c = (blob.min(0) + blob.max(0)) / 2
     assert np.linalg.norm(cam.position - c) < scene_extent(scene)
-
-
-def test_fit_cost_model_recovers_coefficients():
-    from tools.bench_suite import fit_cost_model
-
-    g, c = 8e-6, 0.8e-6
-    rows = []
-    rng = np.random.default_rng(0)
-    for i in range(6):
-        groups = int(rng.integers(30, 80))
-        iters = int(rng.integers(5_000, 300_000))
-        rows.append({"tracer": "pallas-vmem", "groups": groups,
-                     "iters": iters, "best_s": g * groups + c * iters,
-                     "mrays": 1.0})
-    model = fit_cost_model(rows)
-    fit = model["pallas-vmem"]
-    np.testing.assert_allclose(fit["per_group_us"], g * 1e6, rtol=0.05)
-    np.testing.assert_allclose(fit["per_iter_us"], c * 1e6, rtol=0.05)
-    for r in rows:
-        assert abs(r["vs_model"] - 1.0) < 0.01
-
-
-def test_count_iters_api():
-    from tpu_rt.bvh import build_sbvh, flatten_bvh
-    from tpu_rt.core.types import make_rays
-    from tpu_rt.trace.packet2 import trace_packet2
-
-    scene = Scene(procedural.make_blob(500, seed=80))
-    flat = flatten_bvh(build_sbvh(scene), scene.tri_vtx_index,
-                       scene.vtx_pos)
-    rng = np.random.default_rng(1)
-    lo, hi = scene.bbox()
-    size = float(np.linalg.norm(hi - lo))
-    n = 600
-    o = ((lo + hi) / 2 + rng.normal(size=(n, 3)) * size).astype(np.float32)
-    t = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
-    d = t - o
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = make_rays(o, d.astype(np.float32), np.zeros(n),
-                     np.full(n, 4 * size))
-    plain = trace_packet2(flat, rays, interpret=True, tile=512, k=2)
-    hits, iters = trace_packet2(flat, rays, interpret=True, tile=512, k=2,
-                                count_iters=True)
-    np.testing.assert_array_equal(np.asarray(hits.tri),
-                                  np.asarray(plain.tri))
-    it = np.asarray(iters)
-    assert it.shape == (-(-n // (2 * 512)),)
-    assert np.all(it > 0)

@@ -24,8 +24,7 @@ copied blindly.  Sources:
 
 The suite AO radius for a surrogate is the reference radius scaled by
 (surrogate extent / estimated reference extent), i.e. the same
-RELATIVE occlusion range; the estimate and both numbers are recorded in
-BENCH_CALIB.json by tools/calibrate.py.
+RELATIVE occlusion range.
 """
 
 from __future__ import annotations

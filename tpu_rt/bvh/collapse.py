@@ -2,17 +2,15 @@
 
 The reference's Compact2 layout is binary by design — its GPU kernel
 gathers two child AABBs per lane from texture cache (CudaBVH.cc:270-357),
-so wider nodes buy nothing there.  The TPU packet kernel is different:
-every node RECORD FETCH is a shared scalar-cursor step costing a full
-iteration (~2.2 us for the 4-packet interleave, ARCHITECTURE.md cost
-table), while testing more child slabs against the resident ray vectors
-is nearly free vector work.  Collapsing two binary levels into one
-4-wide node halves the node-phase step count per traversal, and merging
-small subtrees into wide leaves (up to MAX_LEAF4 = 16 triangles,
-deduplicating SBVH spatial-split copies) lets each leaf-queue entry
-drain more triangle tests per iteration.  This is the one work-REDUCING
-transform not on the ARCHITECTURE.md kill list (every recorded kill
-repacks the same binary-tree work).
+so wider nodes buy nothing there on that hardware.  Wide BVHs trade more
+child-slab tests per node for fewer dependent node fetches: collapsing
+two binary levels into one 4-wide node halves the node steps per
+traversal, and merging small subtrees into wide leaves (up to MAX_LEAF4 =
+16 triangles, deduplicating SBVH spatial-split copies) cuts leaf visits.
+Wide, compressed BVHs are a published GPU result (Ylitie, Karras, Laine,
+HPG 2017); this host-side collapse and its scalar oracle are kept for a
+4-wide GPU traversal kernel (ROADMAP Speed #3).  No device kernel reads
+this layout today.
 
 Layout (QuadBVH.nodes, [Q, 32] f32):
 
@@ -25,11 +23,10 @@ Layout (QuadBVH.nodes, [Q, 32] f32):
                       < 0 leaf ~(first | count << 24), SENT empty
     col  28           traversal-order hint (bitcast i32): the axis along
                       which the children are stored ascending by box
-                      center; a packet visits slots forward when its
+                      center; a ray visits slots forward when its
                       direction is positive on that axis, reversed
-                      otherwise (the 4-wide analog of packet2's
-                      split-axis hint)
-    cols 29 .. 31     zero padding (future: bf16 packing / octant orders)
+                      otherwise
+    cols 29 .. 31     zero padding
 
 tri_woop / tri_index are re-emitted contiguously per (possibly merged)
 leaf, so a leaf's rows are always consecutive.
@@ -238,10 +235,10 @@ def trace_quad_scalar(quad: QuadBVH, origin, dirn, tmin, tmax,
                       any_hit: bool = False):
     """Scalar per-ray QuadBVH traversal (float32-exact, same per-triangle
     arithmetic as the binary oracle trace_flat_scalar).  Children are
-    visited in the stored-order / reversed-by-direction-sign discipline
-    the packet4 kernel uses (per-ray sign here; the kernel votes a
-    per-packet mean sign, so exact-t ties and anyHit stop points can
-    differ between the two — closest-hit t values cannot).
+    visited in stored order, reversed by the sign of the ray direction
+    on the node's hint axis; a kernel that orders children differently
+    can differ on exact-t ties and anyHit stop points, never on
+    closest-hit t values.
 
     Returns (hit_tri original ids, t, u, v).
     """

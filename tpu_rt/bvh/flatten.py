@@ -1,4 +1,4 @@
-"""Flatten the SBVH pointer tree into TPU-friendly arrays + Woop transform.
+"""Flatten the SBVH pointer tree into flat device arrays + Woop transform.
 
 Equivalent of the reference's CudaBVH::createCompact + woopifyTri
 (src/rt/cuda/CudaBVH.cc:270-380), with the layout deltas documented in

@@ -1,6 +1,6 @@
 """Math + hashing utilities shared by host (numpy) and device (jnp) code.
 
-Reimplements, TPU-first and vectorized, the small math routines the reference
+Reimplements, vectorized, the small math routines the reference
 scatters across its CUDA kernels and base library:
 
 - Jenkins mix / hashBits      (reference src/framework/base/Hash.hh:195-200,

@@ -1,13 +1,14 @@
 """Core data types: SoA pytrees for rays, hits, and the flattened BVH.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference keeps rays as an AoS of 32-byte structs and the BVH as raw byte
 buffers with float4 texture fetches (src/rt/Util.hh:64-89,
-src/rt/cuda/CudaBVH.hh:40-83 in the reference).  On TPU we want
-structure-of-arrays with static shapes so XLA can lay each component out over
-(sublane, lane) tiles, and integer *row indices* instead of byte offsets so
-node/triangle fetches are plain gathers.
+src/rt/cuda/CudaBVH.hh:40-83 in the reference).  Here rays are
+structure-of-arrays with static shapes, which XLA fuses well, and the BVH
+uses integer *row indices* instead of byte offsets so node/triangle fetches
+are plain gathers (the CUDA kernel packs rays back into two float4 per ray
+and reads the same rows as float4).
 
 - ``Rays``   : origins/directions as [N,3] f32, tmin/tmax as [N] f32.
 - ``Hits``   : hit triangle id ([N] i32, -1 = miss) and hit distance t.
@@ -17,8 +18,7 @@ node/triangle fetches are plain gathers.
   rows; a [M] remap to original triangle ids.  Child links are row indices;
   a negative link ``c`` means "leaf", whose triangle rows are
   ``[~c, ~c + count)`` — the count is stored explicitly instead of the
-  reference's -0.0f terminator sentinel (terminators force serial scans;
-  TPU wants counted loops).
+  reference's -0.0f terminator sentinel, so leaf loops are counted.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ class Hits(NamedTuple):
 
 
 class FlatBVH(NamedTuple):
-    """Flattened two-wide BVH in the Compact2-equivalent TPU layout.
+    """Flattened two-wide BVH in the Compact2-equivalent layout.
 
     nodes: [num_nodes, 16] f32.  Per row (matching the reference float4x4
     semantic, src/rt/cuda/CudaBVH.cc:333-337, but index- not byte-addressed):
@@ -167,7 +167,7 @@ def concat_rays(a: Rays, b: Rays) -> Rays:
 
 
 def pad_rays(rays: Rays, multiple: int) -> tuple[Rays, int]:
-    """Pad the batch up to a multiple (TPU tile alignment / sharding).
+    """Pad the batch up to a multiple (e.g. the mesh size for sharding).
 
     Padding rays get tmax = -1, the reference's "degenerate ray" convention
     (src/rt/ray/RayGenKernels.cu:221) so tracers skip them.  Returns the

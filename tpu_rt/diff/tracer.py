@@ -1,6 +1,6 @@
 """Differentiable tracing: gradients through hit distance / barycentrics.
 
-The reference has no autodiff; this is the framework's TPU-era extension
+The reference has no autodiff; this is the framework's extension
 (BASELINE.json north star: pixel gradients w.r.t. vertex positions and
 materials).  Design:
 
@@ -50,9 +50,9 @@ def trace_diff(any_hit: bool, flat: FlatBVH, rays: Rays, vtx_pos: jnp.ndarray,
     the derivative.  Returns Hits whose t/u/v are differentiable w.r.t.
     rays and vtx_pos (misses keep t = tmax with zero gradient).
 
-    raw: optional precomputed routing Hits (e.g. from the Pallas packet
-    kernel on TPU) — routing is discrete, so ANY correct tracer's output
-    can carry it; when given, `flat` is unused."""
+    raw: optional precomputed routing Hits (e.g. from the CUDA kernel) —
+    routing is discrete, so ANY correct tracer's output can carry it; when
+    given, `flat` is unused."""
     frozen_rays = jax.tree_util.tree_map(jax.lax.stop_gradient, rays)
     if raw is None:
         frozen_flat = jax.tree_util.tree_map(jax.lax.stop_gradient, flat)

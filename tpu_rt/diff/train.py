@@ -2,7 +2,7 @@
 
 The reference's only checkpoint mechanism is the BVH cache
 (Renderer.cc:157-217, reproduced in bvh/cache.py).  The differentiable
-TPU path adds a real optimization loop — fit vertex positions and
+path adds a real optimization loop — fit vertex positions and
 materials to a target image by gradient descent — and with it the
 production concern the reference never had: persisting OPTIMIZER state
 so a preempted run resumes exactly (step counter, optax moments, params)

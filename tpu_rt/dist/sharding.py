@@ -1,20 +1,23 @@
 """Multi-chip scaling: rays sharded over a device mesh, geometry replicated.
 
 The reference is single-process single-GPU (SURVEY.md section 2.3); this
-layer is the new first-class component the TPU build adds.  Design, per the
-scaling-book recipe (mesh -> shardings -> XLA collectives):
+layer is a component the framework adds.  Design (mesh -> shardings -> XLA
+collectives):
 
-- Mesh: one axis ("rays") over all chips; on multi-host slices the axis
-  spans hosts so DCN only carries batch boundaries.
-- Rays are batch-data-parallel: each chip traces its shard with an
-  *independent* traversal loop.  shard_map (not plain jit-of-while_loop) is
-  essential: automatic partitioning of a while_loop would insert a global
-  all-reduce on the loop condition every iteration; shard_map keeps each
-  chip's loop local so there are NO collectives in the forward trace.
+- Mesh: one axis ("rays") over all cards.  The cards of a host are joined
+  all to all, so the mesh follows the algorithm alone; across hosts the
+  axis only carries batch boundaries.
+- Rays are batch-data-parallel: each card traces its shard with an
+  *independent* traversal (the CUDA kernel or the XLA wavefront loop).
+  shard_map (not plain jit-of-while_loop) is essential: automatic
+  partitioning of a while_loop would insert a global all-reduce on the
+  loop condition every iteration, and a custom call has no partitioning
+  rule; shard_map keeps each card's trace local so there are NO
+  collectives in the forward trace.
 - BVH + triangle tables are replicated (tens of MB for the reference suite
   — SURVEY.md section 5), broadcast once at upload.
-- Backward: per-chip vertex/material grads are psum'd over ICI — the only
-  communication in the step.
+- Backward: per-card vertex/material grads are psum'd (NCCL all-reduce on
+  GPUs) — the only communication in the step.
 """
 
 from __future__ import annotations
@@ -32,15 +35,14 @@ from tpu_rt.core.types import FlatBVH, Hits, Rays
 from tpu_rt.diff.shading import shade_hits_diff
 from tpu_rt.diff.tracer import trace_diff
 from tpu_rt.trace import _xla_routing
-from tpu_rt.trace.xla_tracer import trace_wavefront
 
 AXIS = "rays"
 
 # Routing-tracer plumbing: every sharded entry point takes an optional
 # (routing, tables) pair from tpu_rt.trace.make_routing_tracer, so the
-# Pallas packet kernel (not just the slow XLA wavefront) runs inside
-# shard_map on TPU.  `routing` is a static argument — create it once per
-# scene and reuse it, or every call recompiles.
+# CUDA kernel (not just the XLA wavefront) runs inside shard_map on each
+# card.  `routing` is a static argument; routing callables compare equal
+# by configuration, so re-creating one does not recompile.
 
 
 def make_ray_mesh(devices=None) -> Mesh:
@@ -93,8 +95,8 @@ def trace_sharded(flat: FlatBVH, rays: Rays, mesh: Mesh, any_hit: bool = False,
     cross-chip communication; each chip runs its own traversal loop.
 
     routing/tables: from tpu_rt.trace.make_routing_tracer — runs the
-    Pallas packet kernel per-chip on TPU.  Default: XLA wavefront over
-    `flat` (which must then be device-resident/replicated)."""
+    CUDA kernel per card.  Default: XLA wavefront over `flat` (which must
+    then be device-resident/replicated)."""
     if routing is None:
         routing, tables = _xla_routing, flat
     return _trace_sharded_jit(mesh, any_hit, routing, tables, rays)
@@ -121,8 +123,8 @@ def _render_diff_sharded_jit(mesh, routing, flat, rays, vtx_pos,
 def render_diff_sharded(mesh, flat, rays, vtx_pos, tri_vtx_index,
                         tri_material, routing=None, tables=None):
     """Sharded differentiable render: per-ray RGB, rays sharded, geometry
-    replicated.  routing/tables (make_routing_tracer) run the fast packet
-    kernel for the stop-gradient routing pass on TPU."""
+    replicated.  routing/tables (make_routing_tracer) run the CUDA kernel
+    for the stop-gradient routing pass."""
     if routing is None:
         tables = flat  # trace_diff routes via the XLA tracer over `flat`
     return _render_diff_sharded_jit(mesh, routing, flat, rays, vtx_pos,
@@ -186,8 +188,7 @@ def _count_collectives(hlo_text: str) -> dict:
 def collective_audit(mesh, flat, rays, vtx_pos, tri_vtx_index, tri_material,
                      target, routing=None, tables=None) -> dict:
     """Mechanical proof of the zero-forward-collective design (the claim
-    in this module's docstring, previously asserted in prose only —
-    VERDICT r4 #3): lower trace_sharded and grad_step_sharded for `mesh`
+    in this module's docstring): lower trace_sharded and grad_step_sharded for `mesh`
     and count collective ops in both the pre-optimization StableHLO and
     the compiled HLO.
 
@@ -229,11 +230,11 @@ def grad_step_sharded(mesh, flat, rays, vtx_pos, tri_vtx_index, tri_material,
                       target, routing=None, tables=None):
     """One full 'training step': sharded forward render, L2 image loss
     against `target` ([N,3], sharded like rays), backward with vertex +
-    material gradient all-reduce (psum over ICI).
+    material gradient all-reduce (psum).
 
     routing/tables (make_routing_tracer): the stop-gradient routing trace
-    runs on the packet kernel on TPU; autodiff only sees the recompute
-    from raw vertices, so gradients are unchanged.
+    runs on the CUDA kernel; autodiff only sees the recompute from raw
+    vertices, so gradients are unchanged.
 
     Returns (loss, grad_vtx_pos, grad_tri_material) — all replicated.
     """

@@ -1,6 +1,6 @@
 """Pixel-format conversion and blitting (host, numpy).
 
-TPU-idiomatic replacement for the reference image library
+Array-based replacement for the reference image library
 (src/framework/gui/Image.hh:36-204, Image.cc): the reference models a
 byte-level channel layout engine feeding OpenGL; here the canonical
 store is a float32 RGBA [H, W, 4] numpy array (what the reconstruct

@@ -5,40 +5,29 @@ performance-critical *host* path native too: the SBVH build + flatten +
 Woop transform runs as one C++ call for big scenes (hairball: 6.5M tris),
 with tpu_rt/bvh/builder.py as the semantic definition and fallback.
 
-The shared library is compiled on demand with g++ (no pybind11 in the
-image; plain C ABI + ctypes) and cached next to this file.
+The shared library is compiled with g++ from sbvh.cc on first use (no
+pybind11; plain C ABI + ctypes) into the git-ignored build directory
+(tpu_rt._build).  It is compiled for the generic x86-64/aarch64 target, not
+-march=native, so a library built on one host runs on another.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from tpu_rt import _build
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SO_PATH = os.path.join(_HERE, "libtpurt_native.so")
 _SRC = os.path.join(_HERE, "sbvh.cc")
+_CMD = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", "{out}"]
 
 _lock = threading.Lock()
 _lib = None
 _build_error: str | None = None
-
-
-def _compile() -> str | None:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        _SRC, "-o", _SO_PATH,
-    ]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"g++ invocation failed: {e}"
-    if proc.returncode != 0:
-        return f"g++ failed:\n{proc.stderr[-2000:]}"
-    return None
 
 
 def get_lib():
@@ -50,14 +39,9 @@ def get_lib():
             return _lib
         if _build_error is not None:
             return None
-        if not os.path.exists(_SO_PATH) or os.path.getmtime(_SO_PATH) < os.path.getmtime(_SRC):
-            err = _compile()
-            if err is not None:
-                _build_error = err
-                return None
         try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError as e:
+            lib = ctypes.CDLL(_build.build_library("libtpurt_native", _SRC, _CMD, timeout=300))
+        except (RuntimeError, OSError) as e:
             _build_error = str(e)
             return None
 

@@ -83,7 +83,7 @@ def gen_primary_rays(
     sy = 2.0 * (py + 0.5) / height - 1.0
 
     # Transform (sx, sy, 0, 1) by the 4x4 with explicit f32 vector math.
-    # A jnp matmul would hit the MXU in bf16; the perspective inverse has
+    # A jnp matmul may run in TF32 on a GPU; the perspective inverse has
     # heavy cancellation in w, so full f32 is required here.
     m = nscreen_to_world.astype(jnp.float32)
     world = m[None, :, 0] * sx[:, None] + m[None, :, 1] * sy[:, None] + m[None, :, 3]  # [n,4]

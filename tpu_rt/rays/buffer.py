@@ -75,15 +75,10 @@ def morton_sort_device_coarse(origin: jnp.ndarray,
     """Permutation sorting rays by a 30-bit origin Morton key (10
     bits/axis within the batch AABB) — ONE sort key instead of six.
 
-    Packet traversal shares one cursor per multi-thousand-ray tile, so
-    only COARSE spatial grouping shapes the traversal union; the fine
-    tail of the 192-bit reference key orders rays WITHIN a packet,
-    which the shared cursor cannot see.  The TPU's variadic multi-key
-    sort is the frame path's wall-clock bottleneck (knob AO: 418 ms of
-    sort against 75 ms of trace); the single-key sort removes ~95% of
-    that with trace time unchanged within noise (measured round 5).
-    ``dirn`` is accepted for signature parity and unused (direction
-    keying measured neutral-to-worse, ARCHITECTURE.md round-4 notes).
+    Coarse spatial grouping is what ray coherence needs; the fine tail
+    of the 192-bit reference key orders rays that are already
+    neighbours, and a variadic six-key sort costs several times a
+    one-key sort.  ``dirn`` is accepted for signature parity and unused.
     """
     valid = jnp.isfinite(origin).all(axis=1, keepdims=True)
     lo = jnp.min(jnp.where(valid, origin, jnp.inf), axis=0)
@@ -106,16 +101,12 @@ def sort_dead_last_device(rays: Rays) -> jnp.ndarray:
     """Morton permutation with the degenerate flag (tmax<0) as the most
     significant key: live rays first in Morton order, dead rays last.
 
-    This is the TPU analogue of the reference's dynamic ray fetch
+    This is a batch-level analogue of the reference's dynamic ray fetch
     (kepler_dynamic_fetch.cu:48,398-401): instead of lanes refilling
     from a work queue, dead work is compacted out of the traced prefix
-    (pair with trace_live_prefix).  NOTE the measured default (v5e,
-    tools/ao_probe.py, knob AO): packing live rays densely makes
-    per-packet traversal unions superlinearly LARGER, so whole-batch
-    compaction is net-negative for the packet kernel and the renderer
-    leaves it OFF; it exists for schedulers/backends where dead-slot
-    cost dominates (e.g. the XLA wavefront tracer, whose while_loop
-    runs until the LAST lane finishes regardless of packet structure).
+    (pair with trace_live_prefix).  It pays where dead slots cost work,
+    as in the XLA wavefront tracer, whose while_loop runs until the LAST
+    lane finishes; the CUDA kernel retires dead rays at fetch.
     """
     keys = ray_morton_keys_device(rays.origin, rays.dirn)
     dead = (rays.tmax < 0).astype(jnp.uint32)
@@ -125,18 +116,31 @@ def sort_dead_last_device(rays: Rays) -> jnp.ndarray:
     return jax.lax.sort(operands, num_keys=7, is_stable=True)[7]
 
 
-def trace_live_prefix(trace_fn, rays: Rays, live: int,
-                      pad_to: int = 2048) -> Hits:
-    """Trace only the first ceil(live/pad_to)*pad_to rays of a
+LIVE_BUCKETS = 8
+
+
+def live_prefix_len(live: int, n: int) -> int:
+    """Rays traced for `live` live rays at the head of an n-ray batch:
+    `live` rounded up to a multiple of ceil(n / LIVE_BUCKETS), at most n.
+
+    Each distinct length compiles the tracer once, so the bucket bounds
+    the compiles per batch size at LIVE_BUCKETS, at the cost of tracing
+    at most n / LIVE_BUCKETS dead rays."""
+    step = max(1, -(-n // LIVE_BUCKETS))
+    return min(n, -(-max(int(live), 0) // step) * step)
+
+
+def trace_live_prefix(trace_fn, rays: Rays, live: int) -> Hits:
+    """Trace only the first live_prefix_len(live, N) rays of a
     dead-last-sorted batch; dead suffix results are misses by
-    construction (tri=-1, t=tmax), exactly what the kernel would emit
-    for tmax<0 rays (packet2 padding semantics).
+    construction (tri=-1, t=tmax), exactly what a tracer emits for
+    tmax<0 rays.
 
     trace_fn: rays -> Hits.  live: number of tmax>=0 rays (host
     scalar — the frame path already knows it: primary hits x samples,
     Renderer.cc:221-238)."""
     n = int(rays.origin.shape[0])
-    m = min(n, -(-max(int(live), 0) // pad_to) * pad_to)
+    m = live_prefix_len(live, n)
     if m >= n:
         return trace_fn(rays)
     sub = jax.tree_util.tree_map(lambda x: x[:m], rays)

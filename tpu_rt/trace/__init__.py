@@ -1,5 +1,3 @@
-from functools import partial
-
 from tpu_rt.trace.cpu_reference import (
     RayStats,
     assign_treelets,
@@ -16,177 +14,41 @@ __all__ = [
     "trace_wavefront",
     "device_bvh",
     "make_routing_tracer",
+    "TRACERS",
 ]
+
+TRACERS = ("auto", "cuda", "xla")
 
 
 def _xla_routing(tables, rays, any_hit=False):
     return trace_wavefront(tables, rays, any_hit=any_hit)
 
 
-class _PacketRouting:
-    """Hashable routing-tracer callable for the packet kernels.
+def make_routing_tracer(flat, prefer: str = "auto"):
+    """Resolve the device tracer for the current backend.
 
-    Downstream code uses the routing fn as a jax.jit STATIC argument
-    (dist/sharding.py), where equality/hash decide cache hits.  A plain
-    functools.partial compares by identity, so re-creating the tracer
-    (per frame / per scene reload) would silently recompile every
-    sharded entry point; this wrapper compares by its config tuple.
-
-    The same wrapper serves the binary (packet2) and 4-wide (packet4)
-    kernels — the record width of the node table selects the kernel's
-    node unit (packet2.py `w4`), so the config needs no arity field.
-    """
-
-    def __init__(self, hbm, interpret, tile, k, u, c, want_uv):
-        self._cfg = (hbm, interpret, tile, k, u, c, want_uv)
-
-    def __call__(self, tables, rays, any_hit=False, count_iters=False):
-        from tpu_rt.trace.packet2 import _trace2_jit
-
-        hbm, interpret, tile, k, u, c, want_uv = self._cfg
-        nodes3, woop3 = tables
-        return _trace2_jit(nodes3, woop3, rays, any_hit, hbm, interpret,
-                           want_uv, k, tile // 128, u, False, c,
-                           count_iters)
-
-    def __eq__(self, other):
-        return (type(other) is _PacketRouting and self._cfg == other._cfg)
-
-    def __hash__(self):
-        return hash(self._cfg)
-
-
-# Back-compat alias used by dist/ docs; prefer make_routing_tracer.
-def _packet_routing(hbm, interpret, tile, k, u, c, tables, rays,
-                    any_hit=False):
-    return _PacketRouting(hbm, interpret, tile, k, u, c, False)(
-        tables, rays, any_hit=any_hit)
-
-
-def _tune_path(flat, cache_dir):
-    """Per-scene tune-cache file (content-keyed like the quad cache)."""
-    import hashlib
-    import os
-
-    import numpy as np
-
-    if cache_dir is None:
-        return None
-    h = hashlib.blake2b(digest_size=8)
-    h.update(np.ascontiguousarray(flat.nodes).tobytes())
-    h.update(b"quad-tune")
-    return os.path.join(cache_dir, f"t{h.hexdigest()[:8]}.json")
-
-
-def quad_policy(flat, cache_dir: str | None = None) -> int:
-    """leaf_max for the MBVH4 collapse.
-
-    Static rule: big scenes (binary node table exceeding the VMEM
-    budget) take 32-wide leaves, everything else 16 (knob regressed at
-    32).  The drain width U always equals the leaf width.  The knee is
-    scene-shaped beyond that — measured: dragon and hairball gain
-    another +7%/+16% at 64-wide leaves while sanmiguel LOSES 24% — so
-    a measured per-scene override can be recorded by tools/tune_quad.py
-    into the cache (content-keyed json next to the quad cache); when
-    present it wins."""
-    import json
-    import os
-
-    import numpy as np
-
-    from tpu_rt.bvh.collapse import MAX_LEAF4
-    from tpu_rt.trace.packet2 import VMEM_TABLE_BUDGET
-
-    p = _tune_path(flat, cache_dir)
-    if p is not None and os.path.exists(p):
-        try:
-            with open(p) as f:
-                return int(json.load(f)["leaf_max"])
-        except (OSError, KeyError, ValueError):
-            pass
-    nodes_b = int(np.asarray(flat.nodes).shape[0]) * 64
-    return 32 if nodes_b > VMEM_TABLE_BUDGET else MAX_LEAF4
-
-
-def make_routing_tracer(flat, prefer: str = "auto", interpret: bool = False,
-                        tile: int | None = None, k: int | None = None,
-                        u: int | None = None, c: int | None = None,
-                        want_uv: bool = False, cache_dir: str | None = None):
-    """Resolve the fastest routing tracer for the current backend/scene.
-
-    Returns (fn, kind, tables) where fn(tables, rays, any_hit) -> Hits is
-    jittable and shard_map-safe (tables is the pytree of device arrays to
-    replicate: packed packet tables for the Pallas kernels, or the device
-    FlatBVH for the XLA wavefront tracer).  Create once per scene and
-    reuse fn — it is used as a static argument downstream (identical
-    configs compare equal, so re-creating it does not recompile).
-
-    want_uv: if False (default) the packet tracers return Hits with
-    u=v=0 — the frame path consumes only (tri, t), matching the
-    reference kernel's int2 result; pass True when barycentrics are
-    needed (the XLA tracer always fills them).
+    Returns (fn, kind, tables): fn(tables, rays, any_hit) -> Hits is
+    jittable and shard_map-safe, kind is "cuda" or "xla", and tables is
+    the device FlatBVH to pass (replicate it for a mesh).  fn is hashable
+    and equal across calls with the same configuration, so it can be a
+    static jit argument.
 
     prefer:
-      "auto"    — packet4 (4-wide MBVH, the round-5 default winner:
-                  +8..69% over packet2 across the suite) on TPU, falling
-                  back packet4 -> packet2 -> XLA with a loud warning;
-      "pallas"  — packet4 -> packet2, raise if neither packs;
-      "packet4" — 4-wide only, raise on failure;
-      "packet"  — binary packet2 only, raise on failure;
-      "xla"     — the portable wavefront tracer.
-    cache_dir: consult/populate the quad-collapse cache (bvh.cache).
+      "auto" — "cuda" when JAX runs on a GPU, "xla" otherwise;
+      "cuda" — the CUDA traversal kernel; raises RuntimeError without a
+               GPU or when the kernel does not build;
+      "xla"  — the plain wavefront tracer (the reference the kernel is
+               checked against).
     """
     import jax
 
-    from tpu_rt.trace.packet2 import (
-        C, K, K4, TILE, TILE4, U, U4, VMEM_TABLE_BUDGET,
-        choose_node_format, prepare_tables2, prepare_tables4,
-    )
+    if prefer not in TRACERS:
+        raise ValueError(f"tracer must be one of {TRACERS}, got {prefer!r}")
+    if prefer == "auto":
+        prefer = "cuda" if jax.default_backend() == "gpu" else "xla"
+    if prefer == "cuda":
+        from tpu_rt.trace.cuda_tracer import cuda_routing
 
-    on_tpu = jax.default_backend() == "tpu"
-    want4 = prefer in ("packet4", "pallas") or (prefer == "auto" and on_tpu)
-    if want4:
-        from tpu_rt.bvh.cache import load_or_collapse_quad
-
-        leaf_max = quad_policy(flat, cache_dir=cache_dir)
-        quad = load_or_collapse_quad(flat, leaf_max=leaf_max,
-                                     cache_dir=cache_dir)
-        tables = prepare_tables4(quad)
-        if tables is not None:
-            nodes_b = int(tables[0].size) * 4
-            woop_b = int(tables[1].size) * 4
-            hbm = ("vmem" if nodes_b + woop_b <= VMEM_TABLE_BUDGET
-                   else "mixed" if nodes_b <= VMEM_TABLE_BUDGET else "hbm")
-            # U matches the leaf width; K=1/tile=2048 across residencies
-            # (round-5 sweep — see packet2.py K4/TILE4 notes).
-            fn = _PacketRouting(hbm, interpret, tile or TILE4, k or K4,
-                                u or leaf_max, c or C, want_uv)
-            return fn, f"packet4-{hbm}", tables
-        if prefer == "packet4":
-            raise ValueError("packet4 tracer requested but scene exceeds "
-                             "packing limits")
-    if prefer in ("packet", "pallas") or (prefer == "auto" and on_tpu):
-        hbm, bf16 = choose_node_format(flat)
-        tables = prepare_tables2(flat, bf16_nodes=bf16)
-        if tables is not None:
-            # Streamed residencies default to the wider-tile/shorter-
-            # interleave schedule (trace_packet2's policy).
-            streaming = hbm != "vmem"
-            dtile = 4096 if streaming else TILE
-            dk = 2 if streaming else K
-            fn = _PacketRouting(hbm, interpret, tile or dtile, k or dk,
-                                u or U, c or C, want_uv)
-            kind = ("packet" if hbm == "vmem" else f"packet-{hbm}") + (
-                "-bf16" if bf16 else "")
-            return fn, kind, tables
-        if prefer in ("packet", "pallas"):
-            raise ValueError("packet tracer requested but scene exceeds "
-                             "packing limits")
-        import warnings
-
-        warnings.warn(
-            "tpu_rt: scene exceeds packet-kernel packing limits; 'auto' "
-            "is falling back to the XLA wavefront tracer (~1000x slower "
-            "on TPU). Use prefer='pallas' to get the limit error instead.",
-            RuntimeWarning, stacklevel=2)
+        fn = cuda_routing()
+        return fn, "cuda", device_bvh(flat)
     return _xla_routing, "xla", device_bvh(flat)
